@@ -87,14 +87,14 @@ def test_checkpoint_resume_mid_fusion(tmp_path):
 
     svol = shard_volume(vol0, mesh)
     for _ in range(2):
-        svol = integrate_sharded(svol, depth, cam, mesh, use_pallas=False)
+        svol = integrate_sharded(svol, depth, cam, mesh)
     save_sharded(svol, str(tmp_path / "mid"))
     restored = load_sharded(
         str(tmp_path / "mid"), shard_volume(vol0, mesh)
     )
     for _ in range(2):
         restored = integrate_sharded(
-            restored, depth, cam, mesh, use_pallas=False
+            restored, depth, cam, mesh
         )
     np.testing.assert_allclose(
         np.asarray(restored.tsdf), np.asarray(ref.tsdf), rtol=0, atol=1e-4

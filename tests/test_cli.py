@@ -145,15 +145,15 @@ def test_icp_cli(tmp_path, capsys):
 
 
 def test_fuse_tracked_pallas(tum_dir, tmp_path, capsys):
-    """--track --pallas: the full tracked loop (banded ICP vs model
-    render, line-mode Pallas integrate) through the CLI, streaming
-    frames (r1 verdict weak 9); prints ATE/RPE vs the dataset ground
-    truth (config-3 quality gate)."""
+    """--track: the fused tracked step (banded ICP vs model render,
+    lost-tracking gate, integrate) through the CLI, streaming frames;
+    prints ATE/RPE vs the dataset ground truth (config-3 quality
+    gate)."""
     out_tsdf = tmp_path / "tracked.tsdf"
     rc = main(
         [
             "fuse", "-d", str(tum_dir), "-m", "3", "-s", "48",
-            "--physical", "2000", "--track", "--pallas", "--filter",
+            "--physical", "2000", "--track", "--filter",
             "-o", str(out_tsdf),
             "--scene", str(tmp_path / "s.png"),
             "--normals", str(tmp_path / "n.png"),
@@ -381,35 +381,34 @@ def test_sfusion_cli_sharded(tmp_path):
 
 
 def test_fuse_color_pallas(tum_dir, tmp_path):
-    """--fuse-color --pallas routes colour fusion through the packed
-    two-table kernel; the colour volume matches the lax CLI run."""
+    """--fuse-color through the CLI == the library colour integrate
+    applied frame by frame to the same frames and poses."""
     rgb_dir = tum_dir / "rgb"
     rgb_dir.mkdir(exist_ok=True)
     for i in range(3):
         img = np.zeros((H, W, 3), np.uint8)
         img[:] = [40, 160, 220]
         save_png(rgb_dir / f"{i}.0.png", img)
-    ref_out = tmp_path / "cl.tsdf"
-    rc = main(
-        ["fuse", "-d", str(tum_dir), "-m", "3", "-s", "48",
-         "--physical", "2000", "--fuse-color",
-         "-o", str(ref_out), "--mesh", "",
-         "--scene", str(tmp_path / "sl.png"),
-         "--normals", str(tmp_path / "nl.png"),
-         *CAM_ARGS]
-    )
-    assert rc in (0, None)
+    from tsdf_tpu.io.tum import TUMDataLoader
+    from tsdf_tpu.ops.integrate import integrate
+
     out = tmp_path / "cp.tsdf"
     rc = main(
         ["fuse", "-d", str(tum_dir), "-m", "3", "-s", "48",
-         "--physical", "2000", "--fuse-color", "--pallas",
+         "--physical", "2000", "--fuse-color",
          "-o", str(out), "--mesh", "",
          "--scene", str(tmp_path / "sp.png"),
          "--normals", str(tmp_path / "np.png"),
          *CAM_ARGS]
     )
     assert rc in (0, None)
-    ref = load_tsdf(str(ref_out))
+    ref = make_volume((48,) * 3, 2000.0).with_color()
+    cam = Camera.from_intrinsics(147.775, 147.525, 82.75, 58.65)
+    for depth_img, pose, rgb in TUMDataLoader(str(tum_dir)).iter_with_rgb():
+        ref = integrate(
+            ref, jnp.asarray(depth_img.data), cam.set_pose(jnp.asarray(pose)),
+            rgb=jnp.asarray(rgb),
+        )
     got = load_tsdf(str(out))
     np.testing.assert_array_equal(
         np.asarray(got.weight), np.asarray(ref.weight)
@@ -418,6 +417,42 @@ def test_fuse_color_pallas(tum_dir, tmp_path):
         np.asarray(got.color, np.int32) - np.asarray(ref.color, np.int32)
     )
     assert dc.max() <= 1
+
+
+def test_fuse_color_devices(tum_dir, tmp_path):
+    """--fuse-color --devices: the sharded colour integrate, un-sharded
+    for the outputs, == the single-device --fuse-color run."""
+    rgb_dir = tum_dir / "rgb"
+    rgb_dir.mkdir(exist_ok=True)
+    for i in range(3):
+        img = np.zeros((H, W, 3), np.uint8)
+        img[:] = [90, 20, 250]
+        save_png(rgb_dir / f"{i}.0.png", img)
+    outs = {}
+    for name, extra in (("single", []), ("mesh", ["--devices", "2x1"])):
+        outs[name] = tmp_path / f"{name}.tsdf"
+        rc = main(
+            ["fuse", "-d", str(tum_dir), "-m", "3", "-s", "48",
+             "--physical", "2000", "--fuse-color", *extra,
+             "-o", str(outs[name]), "--mesh", str(tmp_path / f"{name}.ply"),
+             "--scene", str(tmp_path / f"{name}.png"),
+             "--normals", str(tmp_path / f"{name}_n.png"),
+             *CAM_ARGS]
+        )
+        assert rc in (0, None)
+    ref = load_tsdf(str(outs["single"]))
+    got = load_tsdf(str(outs["mesh"]))
+    np.testing.assert_array_equal(
+        np.asarray(got.weight), np.asarray(ref.weight)
+    )
+    np.testing.assert_allclose(
+        np.asarray(got.tsdf), np.asarray(ref.tsdf), atol=1e-3
+    )
+    dc = np.abs(
+        np.asarray(got.color, np.int32) - np.asarray(ref.color, np.int32)
+    )
+    assert dc.max() <= 1
+    assert (tmp_path / "mesh.ply").stat().st_size > 100
 
 
 def test_fuse_color_tracked(tum_dir, tmp_path):

@@ -152,7 +152,7 @@ def test_banded_fallback_on_fast_motion():
     ]
     cfg = FusionConfig(
         width=W, height=H, volume_size=(64,) * 3,
-        use_pallas=True, icp_band=8,  # cripple the band on purpose
+        icp_band=8,  # cripple the band on purpose
         icp_min_inliers_frac=0.05,
     )
     _, camera, poses, stats = track_and_fuse_frames(

@@ -1,9 +1,9 @@
-"""Regression tests pinning the TPU-layout ICP rewrites to the
+"""Regression tests pinning the planar-layout ICP rewrites to the
 straightforward reference formulations.
 
 The production paths in tracking/icp.py use planar (H, W) layouts and a
-pooled decimation (pyr_down) because the natural formulations pay the
-TPU padded-lane/gather tax (ref for the math being pinned:
+pooled decimation (pyr_down) instead of the natural formulations (ref
+for the math being pinned:
 third_party/ICP_CUDA/Cuda/pyrdown.cu:41-188). These tests assert the
 rewrites are numerically identical to the direct formulations on random
 depth with zeros/NaNs, at even AND odd shapes (round-3 advisor finding:

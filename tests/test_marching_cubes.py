@@ -101,12 +101,14 @@ def test_overflow_flag():
     assert bool(soup.overflowed)
 
 
-def _force_path(vol, layout, tpu_safe, max_cubes=1 << 14, max_vertices=1 << 16):
+def _force_path(
+    vol, layout, scatter_free, max_cubes=1 << 14, max_vertices=1 << 16
+):
     from tsdf_tpu.ops.marching_cubes import _extract_jit
 
     return _extract_jit(
         vol.tsdf, vol.voxel_size, vol.offset,
-        max_cubes, max_vertices, layout, tpu_safe, True,
+        max_cubes, max_vertices, layout, scatter_free, True,
     )
 
 
@@ -119,9 +121,9 @@ def _vertex_set(soup):
     return v[order], x[order]
 
 
-def test_tpu_safe_path_matches_xla_path():
-    """The sort-compaction + lane-gather + matmul-scatter graph (what
-    runs on the chip) is equivalent to the plain XLA graph (voxel pairs exact; positions to
+def test_scatter_free_path_matches_xla_path():
+    """The sort-compaction + matmul-scatter graph is equivalent to the
+    plain XLA graph (voxel pairs exact; positions to
     f32 fusion tolerance)."""
     vol, ref = _sphere_soup()
     got = _force_path(vol, "dense", True)
@@ -134,12 +136,12 @@ def test_tpu_safe_path_matches_xla_path():
     assert np.asarray(got.valid)[: int(got.n_vertices)].all()
 
 
-@pytest.mark.parametrize("tpu_safe", [False, True])
-def test_masked_layout_matches_dense(tpu_safe):
+@pytest.mark.parametrize("scatter_free", [False, True])
+def test_masked_layout_matches_dense(scatter_free):
     """Masked (slot-position) soup holds the same vertex multiset as the
     dense one — only the packing differs."""
     vol, ref = _sphere_soup()
-    got = _force_path(vol, "masked", tpu_safe)
+    got = _force_path(vol, "masked", scatter_free)
     assert int(got.n_vertices) == int(ref.n_vertices)
     assert int(np.asarray(got.valid).sum()) == int(ref.n_vertices)
     rv, rx = _vertex_set(ref)
@@ -152,7 +154,7 @@ def test_masked_layout_matches_dense(tpu_safe):
     np.testing.assert_allclose(mv, dv, atol=1e-3)
 
 
-def test_tpu_safe_large_voxel_indices():
+def test_scatter_free_large_voxel_indices():
     """Voxel indices beyond f32's 2^24 integer range survive the
     two-half f32 gather/scatter encoding (512^3 -> indices to 2^27)."""
     from tsdf_tpu.ops.marching_cubes import _extract_arrays
@@ -164,12 +166,12 @@ def test_tpu_safe_large_voxel_indices():
     ref = _extract_arrays(
         vol.tsdf, vol.voxel_size, vol.offset,
         max_cubes=1 << 12, max_vertices=1 << 14,
-        voxel_index_base=base, tpu_safe=False,
+        voxel_index_base=base, scatter_free=False,
     )
     got = _extract_arrays(
         vol.tsdf, vol.voxel_size, vol.offset,
         max_cubes=1 << 12, max_vertices=1 << 14,
-        voxel_index_base=base, tpu_safe=True,
+        voxel_index_base=base, scatter_free=True,
     )
     rv, rx = _vertex_set(ref)
     gv, gx = _vertex_set(got)
@@ -178,9 +180,9 @@ def test_tpu_safe_large_voxel_indices():
     assert rx.min() >= base
 
 
-def test_tpu_safe_n_cube_z_matches_xla_path():
+def test_scatter_free_n_cube_z_matches_xla_path():
     """The sharded path's n_cube_z row mask (a brick's halo cube row
-    must not emit duplicates) agrees between the chunked TPU-safe
+    must not emit duplicates) agrees between the chunked scatter-free
     compaction and the plain XLA path — including when the cut falls
     inside a chunk (chunk z-extent is 4; cut at 9)."""
     from tsdf_tpu.ops.marching_cubes import _extract_arrays
@@ -190,10 +192,10 @@ def test_tpu_safe_n_cube_z_matches_xla_path():
     vol = fixtures.sphere_tsdf(vol, 300.0, centre=(0.0, 0.0, 0.0))
     kw = dict(max_cubes=1 << 12, max_vertices=1 << 14, n_cube_z=9)
     ref = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=False, **kw
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=False, **kw
     )
     got = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=True, **kw
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=True, **kw
     )
     assert int(got.n_vertices) == int(ref.n_vertices) > 0
     rv, rx = _vertex_set(ref)
@@ -202,7 +204,7 @@ def test_tpu_safe_n_cube_z_matches_xla_path():
     np.testing.assert_allclose(gv, rv, atol=1e-3)
 
 
-def test_tpu_safe_chunk_boundary_wall():
+def test_scatter_free_chunk_boundary_wall():
     """A wall whose sign change sits exactly on a chunk face plane
     (z = 4k, the chunk z-extent) is captured by the chunked occupancy
     pooling; equality vs the XLA path."""
@@ -223,10 +225,10 @@ def test_tpu_safe_chunk_boundary_wall():
     vol = vol.replace(tsdf=jnp.asarray(d))
     kw = dict(max_cubes=1 << 12, max_vertices=1 << 14)
     ref = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=False, **kw
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=False, **kw
     )
     got = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=True, **kw
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=True, **kw
     )
     assert int(got.n_vertices) == int(ref.n_vertices) > 0
     rv, rx = _vertex_set(ref)
@@ -250,10 +252,10 @@ def test_chunk_overflow_flag_and_unchunked_fallback():
 
     kw = dict(max_cubes=1 << 14, max_vertices=1 << 16, layout="masked")
     ref = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=False, **kw
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=False, **kw
     )
     got = _extract_arrays(
-        vol.tsdf, vol.voxel_size, vol.offset, tpu_safe=True,
+        vol.tsdf, vol.voxel_size, vol.offset, scatter_free=True,
         use_chunked=False, **kw
     )
     assert not bool(got.overflowed)

@@ -1,4 +1,4 @@
-"""Native C++ PNG codec + prefetcher vs the PIL path."""
+"""Native C++ PNG codec + prefetcher vs the numpy codec (io/png.py)."""
 
 import numpy as np
 import pytest
@@ -24,10 +24,11 @@ def test_roundtrip_native(tmp_path):
 
 
 def test_native_matches_pil(tmp_path):
+    """The native codec and io/png.py read each other's files."""
     img = _img(1)
     p1 = str(tmp_path / "a.png")
     p2 = str(tmp_path / "b.png")
-    save_png(p1, img)  # PIL writes
+    save_png(p1, img)  # numpy codec writes
     np.testing.assert_array_equal(native.load_png16(p1), img)
     native.save_png16(p2, img)  # native writes
     np.testing.assert_array_equal(load_png(p2), img)
@@ -81,12 +82,9 @@ def test_prefetcher_retake_errors(tmp_path):
 
 def test_prefetcher_rejects_non_grey16(tmp_path):
     # strict mode: an 8-bit PNG must error per-frame (the TUM loader
-    # falls back to the PIL path so both loaders agree).
-    from PIL import Image
-    import pytest
-
+    # falls back to io/png.py so both loaders agree).
     p8 = str(tmp_path / "f8.png")
-    Image.fromarray(np.full((4, 4), 7, np.uint8)).save(p8)
+    save_png(p8, np.full((4, 4), 7, np.uint8))
     pf = native.PNGPrefetcher([p8, p8], threads=1)
     try:
         with pytest.raises(IOError):

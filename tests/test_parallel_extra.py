@@ -126,13 +126,13 @@ def test_update_deformation_sharded_matches_single(mesh):
 
     soup = extract_surface(vol, max_cubes=1 << 14, max_vertices=1 << 16)
     ref, n_ref = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=False
+        vol, soup, depth, cam, flow, scatter_free=False
     )
 
     vs = shard_volume(vol, mesh)
     got, n_got = update_deformation_sharded(
         vs, depth, cam, flow, mesh,
-        max_cubes_per_brick=1 << 12, tpu_safe=False,
+        max_cubes_per_brick=1 << 12, scatter_free=False,
     )
     assert int(n_got) == int(n_ref)
     np.testing.assert_allclose(
@@ -175,14 +175,14 @@ def test_scenefusion_frame_sharded_matches_single(mesh):
 
     soup = extract_surface(vol, max_cubes=1 << 14, max_vertices=1 << 16)
     mid, n_ref = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=False
+        vol, soup, depth, cam, flow, scatter_free=False
     )
     ref = integrate(mid, depth, cam)
 
     vs = shard_volume(vol, mesh)
     got, n_got = scenefusion_frame_sharded(
         vs, depth, cam, flow, mesh,
-        max_cubes_per_brick=1 << 12, tpu_safe=False,
+        max_cubes_per_brick=1 << 12, scatter_free=False,
     )
     assert int(n_got) == int(n_ref)
     np.testing.assert_allclose(
@@ -202,7 +202,7 @@ def test_integrate_pose_sharded_gradient_matches_single(mesh):
     import jax
 
     from tsdf_tpu import Camera, make_volume
-    from tsdf_tpu.kernels.integrate import integrate_pose
+    from tsdf_tpu.ops.integrate_diff import integrate_pose
     from tsdf_tpu.parallel.ops import (
         integrate_pose_sharded,
         shard_volume,
@@ -224,15 +224,13 @@ def test_integrate_pose_sharded_gradient_matches_single(mesh):
     gbar = jnp.asarray(rng.randn(32, 32, 32), jnp.float32)
 
     def loss_single(delta):
-        out, _ = integrate_pose(vol, depth, cam, delta, interpret=True)
+        out = integrate_pose(vol, depth, cam, delta)
         return jnp.sum(gbar * out.tsdf)
 
     vs = shard_volume(vol, mesh)
 
     def loss_sharded(delta):
-        out, _ = integrate_pose_sharded(
-            vs, depth, cam, delta, mesh, interpret=True
-        )
+        out = integrate_pose_sharded(vs, depth, cam, delta, mesh)
         return jnp.sum(gbar * out.tsdf)
 
     d0 = jnp.zeros(6)
@@ -242,107 +240,3 @@ def test_integrate_pose_sharded_gradient_matches_single(mesh):
     np.testing.assert_allclose(
         np.asarray(g2), np.asarray(g1), rtol=1e-4, atol=1e-4
     )
-
-
-def test_warped_topup_sharded_closes_the_fallback(mesh):
-    """Per-brick top-up == lax integrate on the whole deformed volume
-    (round-4 parity: the sharded non-rigid path no longer needs the
-    lax-sharded fallback for exact-or-skip misses)."""
-    import jax.numpy as jnp
-
-    from tsdf_tpu import Camera, integrate, make_volume
-    from tsdf_tpu.parallel.ops import (
-        _integrate_warped_sharded_mask_jit,
-        shard_volume,
-        warped_topup_sharded,
-    )
-    from tsdf_tpu.utils import fixtures
-
-    vol = make_volume(
-        (32, 32, 32), 2000.0, offset=(-1000.0, -1000.0, 0.0),
-        with_deformation=True,
-    )
-    # pathological within-column x-warp: +-60mm alternating with voxel y
-    # cannot fit the dual-band window at nk=3 -> misses -> top-up
-    y = jnp.arange(32, dtype=jnp.float32)[None, :, None]
-    dx = 60.0 * jnp.where(y % 2 == 0, 1.0, -1.0)
-    disp = jnp.stack(
-        [
-            jnp.broadcast_to(dx, vol.deform.shape[:-1]),
-            jnp.zeros(vol.deform.shape[:-1]),
-            jnp.zeros(vol.deform.shape[:-1]),
-        ],
-        axis=-1,
-    )
-    vol = vol.replace(deform=vol.deform + disp)
-    cam = (
-        Camera.default_depth_camera()
-        .move_to([0.0, 0.0, -500.0])
-        .look_at([0.0, 0.0, 1000.0])
-    )
-    depth = jnp.asarray(
-        fixtures.sphere_depth_map(64, 48, 20.0, 800.0, 1200.0),
-        jnp.float32,
-    )
-    ref = integrate(vol, depth, cam)
-
-    svol = shard_volume(vol, mesh)
-    out, miss, mask = _integrate_warped_sharded_mask_jit(
-        svol, depth, cam, mesh=mesh, cap_weight=False, nk=3,
-        interpret=True,
-    )
-    assert int(miss) > 0
-    full, remaining = warped_topup_sharded(out, mask, depth, cam, mesh)
-    assert int(remaining) == 0
-    np.testing.assert_array_equal(
-        np.asarray(full.weight), np.asarray(ref.weight)
-    )
-    np.testing.assert_allclose(
-        np.asarray(full.tsdf), np.asarray(ref.tsdf), rtol=0, atol=5e-3
-    )
-
-
-def test_warped_topup_sharded_cap_reports_remaining(mesh):
-    import jax.numpy as jnp
-
-    from tsdf_tpu import Camera, make_volume
-    from tsdf_tpu.parallel.ops import (
-        _integrate_warped_sharded_mask_jit,
-        shard_volume,
-        warped_topup_sharded,
-    )
-    from tsdf_tpu.utils import fixtures
-
-    vol = make_volume(
-        (32, 32, 32), 2000.0, offset=(-1000.0, -1000.0, 0.0),
-        with_deformation=True,
-    )
-    y = jnp.arange(32, dtype=jnp.float32)[None, :, None]
-    dx = 60.0 * jnp.where(y % 2 == 0, 1.0, -1.0)
-    disp = jnp.stack(
-        [
-            jnp.broadcast_to(dx, vol.deform.shape[:-1]),
-            jnp.zeros(vol.deform.shape[:-1]),
-            jnp.zeros(vol.deform.shape[:-1]),
-        ],
-        axis=-1,
-    )
-    vol = vol.replace(deform=vol.deform + disp)
-    cam = (
-        Camera.default_depth_camera()
-        .move_to([0.0, 0.0, -500.0])
-        .look_at([0.0, 0.0, 1000.0])
-    )
-    depth = jnp.asarray(
-        fixtures.sphere_depth_map(64, 48, 20.0, 800.0, 1200.0),
-        jnp.float32,
-    )
-    svol = shard_volume(vol, mesh)
-    out, miss, mask = _integrate_warped_sharded_mask_jit(
-        svol, depth, cam, mesh=mesh, cap_weight=False, nk=3,
-        interpret=True,
-    )
-    _full, remaining = warped_topup_sharded(
-        out, mask, depth, cam, mesh, max_topup_per_brick=8
-    )
-    assert int(remaining) > 0

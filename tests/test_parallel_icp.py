@@ -1,5 +1,5 @@
 """Sharded full ICP pyramid + tracked fusion == single-device, on the
-8-CPU mesh (VERDICT r1 item 8)."""
+8-CPU mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from tsdf_tpu import Camera, make_volume
-from tsdf_tpu.kernels.raycast import raycast_pallas
+from tsdf_tpu.ops.raycast import raycast
 from tsdf_tpu.parallel import (
     get_incremental_transformation_sharded,
     make_mesh,
@@ -38,7 +38,7 @@ def _scene():
 
 
 def _depth_of(scene, cam):
-    verts, _ = raycast_pallas(scene, cam, W, H, interpret=True)
+    verts, _ = raycast(scene, cam, width=W, height=H)
     camz = cam.world_to_camera(
         jnp.where(jnp.isfinite(verts), verts, 0.0).reshape(-1, 3)
     ).reshape(H, W, 3)[..., 2]
@@ -110,10 +110,8 @@ def test_tracked_fusion_on_mesh_matches_single(mesh):
     )
     for pm, pr in zip(poses_mesh, poses_ref):
         # trajectories agree: translation within 2 mm, rotation within
-        # ~0.1 deg — the sharded loop's model render is the brick-local
-        # slab sweep (round 4; the volume-replicating lax march is
-        # opt-in), whose sub-voxel vertex differences shift the ICP fit
-        # slightly more than the old all_gather path did
+        # ~0.1 deg (brick-local integrates differ from the single-device
+        # one in the last bits, which shifts the ICP fit slightly)
         np.testing.assert_allclose(
             np.asarray(pm)[:3, 3], np.asarray(pr)[:3, 3], atol=2.0
         )

@@ -107,7 +107,7 @@ def test_bilateral_filter_preserves_edges():
 
 
 def test_fuse_frames_chunked_scan_matches_per_frame():
-    """The chunked lax.scan GT-pose fusion (_fuse_chunk_pallas, one
+    """The chunked lax.scan GT-pose fusion (_fuse_chunk, one
     dispatch per fuse_chunk frames) == the per-frame dispatch path."""
     import dataclasses
 
@@ -128,7 +128,7 @@ def test_fuse_frames_chunked_scan_matches_per_frame():
     cfg = FusionConfig(
         volume_size=(48,) * 3, physical_size_mm=1500.0,
         offset_mm=(-750.0, -750.0, 0.0),
-        width=W, height=H, use_pallas=True,
+        width=W, height=H,
     )
     chunked, cam_a = fuse_frames(
         vol0, cams[0], frames, dataclasses.replace(cfg, fuse_chunk=2)
@@ -154,7 +154,6 @@ def test_track_and_fuse_color_frames():
     import numpy as np
 
     from tsdf_tpu import Camera, make_volume
-    from tsdf_tpu.kernels.raycast import raycast_pallas
     from tsdf_tpu.pipelines import FusionConfig, track_and_fuse_frames
     from tsdf_tpu.utils import fixtures
 
@@ -174,7 +173,7 @@ def test_track_and_fuse_color_frames():
     ]
 
     def depth_of(c):
-        verts, _ = raycast_pallas(scene, c, W_, H_, interpret=True)
+        verts, _ = raycast(scene, c, width=W_, height=H_)
         camz = c.world_to_camera(
             jnp.where(jnp.isfinite(verts), verts, 0.0).reshape(-1, 3)
         ).reshape(H_, W_, 3)[..., 2]
@@ -185,7 +184,7 @@ def test_track_and_fuse_color_frames():
     vol = make_volume(
         (64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0), with_color=True
     )
-    cfg = FusionConfig(width=W_, height=H_, use_pallas=True)
+    cfg = FusionConfig(width=W_, height=H_)
     out, cam_fin, poses, stats = track_and_fuse_frames(
         vol, cams[0], frames, cfg
     )
@@ -212,7 +211,7 @@ def test_tracking_lost_frame_not_fused_or_applied():
     dead = jnp.zeros((H, W), jnp.float32)  # no data at all
     vol = make_volume((64, 64, 64), 2000.0, offset=(-1000.0, -1000.0, 0.0))
     cfg = FusionConfig(
-        width=W, height=H, use_pallas=True, icp_band=0,  # exact path
+        width=W, height=H, icp_band=0,  # exact path
         icp_min_inliers_frac=0.02,
     )
     vol2, cam, poses, stats = track_and_fuse_frames(
@@ -238,7 +237,7 @@ def test_deform_volume_rejected_by_pallas_tracked_loop():
         with_deformation=True,
     )
     cams = _trajectory(1)
-    cfg = FusionConfig(width=W, height=H, use_pallas=True)
+    cfg = FusionConfig(width=W, height=H)
     with pytest.raises(ValueError, match="deformation"):
         track_and_fuse_frames(
             vol, cams[0], [np.zeros((H, W), np.float32)], cfg
@@ -246,7 +245,7 @@ def test_deform_volume_rejected_by_pallas_tracked_loop():
 
 
 def test_tracked_chunked_scan_matches_per_frame():
-    """The chunked tracked-fusion scan (_tracked_chunk_pallas, one
+    """The chunked tracked-fusion scan (_tracked_chunk, one
     dispatch per track_chunk frames, zero-depth tail padding) == the
     per-frame dispatch path: same fused volume, same poses, same stats.
     The 4-frame sequence with track_chunk=2 exercises a full chunk AND
@@ -259,7 +258,7 @@ def test_tracked_chunked_scan_matches_per_frame():
         render_to_depth_image(scene, c, width=W, height=H) for c in cams
     ]
     vol = make_volume((64, 64, 64), 2000.0, offset=(-1000.0, -1000.0, 0.0))
-    cfg = FusionConfig(width=W, height=H, use_pallas=True)
+    cfg = FusionConfig(width=W, height=H)
     v_c, cam_c, poses_c, stats_c = track_and_fuse_frames(
         vol, cams[0], frames, dataclasses.replace(cfg, track_chunk=2)
     )
@@ -273,73 +272,16 @@ def test_tracked_chunked_scan_matches_per_frame():
     np.testing.assert_allclose(
         np.asarray(v_c.tsdf), np.asarray(v_p.tsdf), atol=1e-3
     )
+    # poses to f32 resolution: XLA compiles the scan body and the
+    # standalone step separately, so a frame tracked inside the scan can
+    # round differently in the last bit (|t| ~ 400 mm: 1 ulp = 3e-5 mm)
     np.testing.assert_allclose(
-        np.asarray(cam_c.pose), np.asarray(cam_p.pose), atol=1e-5
+        np.asarray(cam_c.pose), np.asarray(cam_p.pose), rtol=1e-6, atol=1e-5
     )
     for pc, pp in zip(poses_c, poses_p):
         np.testing.assert_allclose(
-            np.asarray(pc), np.asarray(pp), atol=1e-5
+            np.asarray(pc), np.asarray(pp), rtol=1e-6, atol=1e-5
         )
     for (ec, ic), (ep, ip) in zip(stats_c, stats_p):
         np.testing.assert_allclose(float(ec), float(ep), atol=1e-3)
         assert float(ic) == float(ip)
-
-
-def test_tracked_pipeline_fast_mode():
-    """FusionConfig(integrate_mode='fast') flows through the tracked
-    loop: poses stay close to the line-mode run (the decimated
-    convention shifts fused depth sub-voxel) and no misses fire."""
-    import warnings
-
-    from tsdf_tpu import Camera, make_volume
-    from tsdf_tpu.pipelines import FusionConfig, track_and_fuse_frames
-    from tsdf_tpu.utils import fixtures
-
-    scene = fixtures.sphere_tsdf(
-        make_volume((64,) * 3, 3000.0, offset=(-1500.0, -1500.0, 0.0)),
-        600.0,
-    )
-    scene = scene.replace(weight=jnp.ones_like(scene.weight))
-    W, H = 160, 120
-    cams = [
-        Camera.from_intrinsics(147.8, 147.5, 82.75, 58.65)
-        .move_to([30.0 * t, -20.0 * t, -500.0])
-        .look_at([0.0, 0.0, 1500.0])
-        for t in (0.0, 0.5, 1.0)
-    ]
-    from tsdf_tpu.kernels.raycast import raycast_pallas
-
-    frames = []
-    for c in cams:
-        verts, _ = raycast_pallas(scene, c, W, H, interpret=True)
-        camz = c.world_to_camera(
-            jnp.where(jnp.isfinite(verts), verts, 0.0).reshape(-1, 3)
-        ).reshape(H, W, 3)[..., 2]
-        frames.append(
-            jnp.where(jnp.isfinite(verts).all(-1), camz, 0.0).astype(
-                jnp.float32
-            )
-        )
-
-    def run(mode):
-        kvol = make_volume(
-            (64,) * 3, 3000.0, offset=(-1500.0, -1500.0, 0.0)
-        )
-        cfg = FusionConfig(
-            width=W, height=H, use_pallas=True, integrate_mode=mode
-        )
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")  # any miss warning -> fail
-            _, _, poses, _ = track_and_fuse_frames(
-                kvol, cams[0], frames, cfg
-            )
-        return poses
-
-    # the tiny 64^3 fixture is too coarse for accurate tracking (other
-    # tests cover quality); this gates the PLUMBING: the fast mode runs
-    # end-to-end with zero miss warnings and finite poses
-    p_line = run("line")
-    p_fast = run("fast")
-    for a, b in zip(p_line, p_fast):
-        assert np.isfinite(np.asarray(a)).all()
-        assert np.isfinite(np.asarray(b)).all()

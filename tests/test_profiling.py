@@ -19,12 +19,14 @@ from tsdf_tpu.utils import profiling
 
 
 def test_sync_returns_scalar_checksum():
-    # plain array
-    assert profiling.sync(jnp.arange(8.0)) == pytest.approx(28.0)
-    # pytree: sync() by design reduces only the FIRST leaf ('a' -> 28);
-    # a full-tree sum would be 32, so the values distinguish the two.
+    # sync() blocks with block_until_ready and hands its argument back
+    # (no host round trip); the values it returns are the computed ones
+    a = jnp.arange(8.0)
+    assert profiling.sync(a) is a
     x = {"a": jnp.arange(8.0), "b": jnp.ones((2, 2))}
-    assert profiling.sync(x) == pytest.approx(28.0)
+    out = profiling.sync(x)
+    assert float(jnp.sum(out["a"])) == pytest.approx(28.0)
+    assert float(jnp.sum(out["b"])) == pytest.approx(4.0)
 
 
 def test_timer_elapsed_rates_and_json_log(caplog):

@@ -1,12 +1,23 @@
-"""Slab-sweep raycaster (interpret mode) vs the lax reference path."""
+"""The per-tile Triton ray march (interpret mode) vs the plain-JAX
+``march_rays`` reference that ``raycast`` runs on the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tsdf_tpu import Camera, make_volume, raycast
-from tsdf_tpu.kernels.raycast import raycast_pallas
+from tsdf_tpu.kernels.raymarch import march_image_tiled
+from tsdf_tpu.ops.raycast import compute_normals_from_vertices, ray_directions
 from tsdf_tpu.utils import fixtures
+
+
+def raycast_pallas(vol, cam, width, height, interpret=True):
+    """(vertices, normals) from the kernel, like ops.raycast."""
+    verts = march_image_tiled(
+        vol, cam.position, ray_directions(cam, width, height),
+        interpret=interpret,
+    )
+    return verts, compute_normals_from_vertices(verts)
 
 W, H = 160, 120
 FX, FY, CX, CY = 591.1 / 4, 590.1 / 4, 331.0 / 4, 234.6 / 4
@@ -80,8 +91,7 @@ def test_nonaligned_grid():
 
 
 def test_all_principal_view_axes():
-    """The sweep axis follows the camera: all six axis-aligned-ish views
-    agree with the lax reference."""
+    """All six axis-aligned-ish views agree with the reference."""
     vol = make_volume((64, 48, 56), 2000.0, offset=(-1000.0, -1000.0, -1000.0))
     vol = fixtures.sphere_tsdf(vol, 350.0, centre=(0.0, 0.0, 0.0))
     views = [
@@ -109,11 +119,6 @@ def test_all_principal_view_axes():
 
 
 def test_raycast_pallas_bf16_volume():
-    import jax.numpy as jnp
-    from tsdf_tpu import Camera, make_volume
-    from tsdf_tpu.kernels.raycast import raycast_pallas
-    from tsdf_tpu.utils import fixtures
-
     vol = _vol()
     cam = (
         Camera.from_intrinsics(FX, FY, CX, CY)
@@ -133,8 +138,7 @@ def test_raycast_pallas_bf16_volume():
 
 
 def test_empty_volume_all_misses():
-    """A cleared volume (+trunc everywhere) takes the all-positive
-    brick-skip branch for every brick and must report all misses."""
+    """A cleared volume (+trunc everywhere) must report all misses."""
     vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0))
     cam = (
         Camera.from_intrinsics(FX, FY, CX, CY)
@@ -146,10 +150,8 @@ def test_empty_volume_all_misses():
 
 
 def test_crossing_at_brick_boundary():
-    """Zero crossing between the last slab of a skipped (all-positive)
-    brick and the first slab of the next brick: the skip branch samples
-    the sweep-last slab of every empty brick, so the secant's previous
-    sample stays adjacent and the hit depth must be exact."""
+    """Wall plane 4 voxels into the volume: the TSDF is linear in z
+    inside the truncation band, so the secant lands on the plane."""
     vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0))
     vs = float(vol.voxel_size[2])
     # wall plane just past the slab-3/slab-4 brick boundary (zl=4)
@@ -176,10 +178,9 @@ def test_crossing_at_brick_boundary():
 
 
 def test_geometry_behind_camera_inside_volume():
-    """Slabs behind the camera mirror-project onto the image; before the
-    t>0 slab gate, a mirror sample with s <= 0 killed the ray before its
-    true forward intersection. Camera sits between two spheres, looking
-    at the far one."""
+    """Camera inside the volume between two spheres, looking at the far
+    one: the ray starts at the camera (near t clamped to 0), so geometry
+    behind it is never sampled."""
     vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0))
     centres = vol.voxel_centres()
     trunc = vol.truncation_distance
@@ -210,11 +211,9 @@ def test_geometry_behind_camera_inside_volume():
 
 
 def test_empty_run_jump_sparse_scene():
-    """Round-5 run-jump skip: a scene whose surfaces sit in the FIRST
-    and LAST z-bricks with a long empty run between them must hit both
-    (the jump samples exactly one adjacency slab per empty run; a
-    crossing at the run's far boundary must survive), forward AND
-    reversed sweep."""
+    """Thin walls near both ends of the volume with a long empty run
+    between them: rays through the window in the near wall must reach
+    the far one, looking forward AND backward."""
     vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0))
     # THIN slab walls (negative only inside a bounded band) near z=150
     # and z=1900, positive everywhere else — unlike the half-space
@@ -241,8 +240,6 @@ def test_empty_run_jump_sparse_scene():
         .move_to([0.0, 0.0, -400.0])
         .look_at([0.0, 0.0, 1000.0])
     )
-    # thin-wall window edges have many grazing rays where the two
-    # sampling schemes legitimately differ: relax the silhouette budget
     _check(sparse, cam, min_agree=0.97)
     # hits must exist on BOTH walls (window rays reach the far wall)
     vp, _ = raycast_pallas(sparse, cam, width=W, height=H, interpret=True)

@@ -124,42 +124,6 @@ def test_take_flat_forward_and_grad():
     )
 
 
-def test_lane_gather_windowed_matches_full():
-    """Windowed gather (per-tile index windows + miss counter) ==
-    full-scan lane gather; lane_gather_checked is exact even when tiles
-    overflow their window (miss > 0 -> on-device fallback)."""
-    import numpy as np
-
-    from tsdf_tpu.kernels.gather import (
-        lane_gather_checked,
-        lane_gather_op,
-        lane_gather_windowed_op,
-    )
-
-    rng = np.random.default_rng(3)
-    s, w, c = 96, 512, 200
-    tab = jnp.asarray(rng.standard_normal((s, w)).astype(np.float32))
-
-    # coherent: per-tile span < 128 -> zero misses, bitwise equal
-    narrow = jnp.asarray(
-        ((np.arange(c)[None, :] % 100) + (np.arange(s)[:, None] // 64) * 128)
-        .astype(np.int32) % w
-    )
-    ref = lane_gather_op(tab, narrow, interpret=True)
-    out, miss = lane_gather_windowed_op(tab, narrow, interpret=True)
-    assert int(miss) == 0
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    # wild indices incl. out-of-range: windowed alone misses, checked
-    # falls back and matches exactly (out-of-range -> 0 in both)
-    wild = jnp.asarray(rng.integers(-10, w + 10, (s, c)).astype(np.int32))
-    ref2 = lane_gather_op(tab, wild, interpret=True)
-    _, miss2 = lane_gather_windowed_op(tab, wild, interpret=True)
-    assert int(miss2) > 0
-    chk = lane_gather_checked(tab, wild, interpret=True)
-    np.testing.assert_array_equal(np.asarray(chk), np.asarray(ref2))
-
-
 def test_scatter_fold_offsets_matches_naive():
     """fold_offsets: G stencil taps sharing one window walk == G naive
     scatters at shifted targets (incl. out-of-range taps dropped and an
@@ -264,47 +228,6 @@ def test_gather_flat_dead_tail_and_sparse_span():
     )
     np.testing.assert_array_equal(got[: len(live)], live[::-1])
     np.testing.assert_array_equal(got[len(live):], 0.0)
-
-
-def test_lane_gather_cpu_fallback_nan_table():
-    """The CPU fallback's out-of-range-returns-0 must be a where, not a
-    mask multiply: a NaN at the clipped table position must not leak
-    into the 0 (bit-identical contract with the TPU kernel)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from tsdf_tpu.kernels.gather import (
-        lane_gather_any,
-        lane_gather_fast,
-        lane_gather_op,
-    )
-
-    tab = jnp.zeros((8, 128), jnp.float32).at[:, 0].set(jnp.nan)
-    idx = jnp.full((8, 128), -1, jnp.int32)  # clips to column 0 (NaN)
-    kernel = np.asarray(lane_gather_op(tab, idx, interpret=True))
-    for fn in (lane_gather_any, lane_gather_fast):
-        out = np.asarray(fn(tab, idx))
-        np.testing.assert_array_equal(out, kernel)
-        assert not np.isnan(out).any()
-
-
-def test_row_gather_op_matches_take():
-    """Scalar-prefetch DMA row gather == jnp.take(axis=0), including
-    ragged shapes (non-lane-multiple width, non-multiple-of-r row
-    count) and out-of-range clamping."""
-    import numpy as np
-
-    from tsdf_tpu.kernels.gather import row_gather_op
-
-    rng = np.random.default_rng(0)
-    for n, w, j in ((1000, 300, 555), (37, 128, 8), (64, 513, 129)):
-        tab = jnp.asarray(rng.normal(size=(n, w)), jnp.float32)
-        idx = jnp.asarray(
-            rng.integers(-3, n + 3, size=(j,)), jnp.int32
-        )  # incl. out-of-range -> clamped
-        out = row_gather_op(tab, idx, interpret=True)
-        ref = jnp.take(tab, jnp.clip(idx, 0, n - 1), axis=0)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_gather_flat_rejects_bool_true_hint():

@@ -185,7 +185,7 @@ def test_scenefusion_periodic_dumps(tmp_path):
 
 
 def test_update_deformation_matmul_scatter_path():
-    """The matmul-scatter accumulation (the TPU path; ops/scatter.py)
+    """The matmul-scatter accumulation (scatter_free; ops/scatter.py)
     matches XLA scatter-add exactly — counts, flow sums, corr count."""
     vol, cam, depth = _sphere_setup()
     flow = jnp.broadcast_to(
@@ -193,10 +193,10 @@ def test_update_deformation_matmul_scatter_path():
     )
     soup = extract_surface(vol, max_cubes=1 << 14, max_vertices=1 << 16)
     ref, n_ref = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=False
+        vol, soup, depth, cam, flow, scatter_free=False
     )
     got, n_got = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=True
+        vol, soup, depth, cam, flow, scatter_free=True
     )
     assert int(n_got) == int(n_ref)
     np.testing.assert_allclose(
@@ -217,7 +217,7 @@ def test_update_deformation_masked_soup():
     masked = _extract_arrays(
         vol.tsdf, vol.voxel_size, vol.offset,
         max_cubes=1 << 14, max_vertices=1,
-        layout="masked", tpu_safe=False,
+        layout="masked", scatter_free=False,
     )
     ref, n_ref = update_deformation(vol, dense, depth, cam, flow)
     got, n_got = update_deformation(vol, masked, depth, cam, flow)
@@ -228,29 +228,26 @@ def test_update_deformation_masked_soup():
 
 
 def test_fused_step_matches_sequential():
-    """_sf_step_pallas (one jit: masked extract -> deformation update ->
-    warped integrate) == the sequential extract/update/integrate chain."""
-    from tsdf_tpu.pipelines.scenefusion import _sf_step_pallas
-    from tsdf_tpu.kernels.integrate import integrate_warped_pallas
+    """_sf_step (one jit: masked extract -> deformation update ->
+    deformed integrate) == the sequential extract/update/integrate
+    chain."""
+    from tsdf_tpu.ops.integrate import integrate
+    from tsdf_tpu.pipelines.scenefusion import _sf_step
 
     vol, cam, depth = _sphere_setup()
     flow = jnp.broadcast_to(
         jnp.array([5.0, 0.0, 0.0], jnp.float32), (H, W, 3)
     )
-    got, miss, _mask, n_corr, overflow = _sf_step_pallas(
+    got, n_corr, overflow = _sf_step(
         vol, depth, flow, cam,
-        max_cubes=1 << 14, nk=5,
-        threshold_mm=10.0, tpu_safe=False,
+        max_cubes=1 << 14, threshold_mm=10.0, scatter_free=False,
     )
-    assert int(miss) == 0
     assert int(n_corr) > 100
     assert not bool(overflow)
 
     soup = extract_surface(vol, max_cubes=1 << 14, max_vertices=1 << 16)
     mid, n_ref = update_deformation(vol, soup, depth, cam, flow)
-    ref, miss_ref = integrate_warped_pallas(
-        mid, depth, cam, nk=5, interpret=True
-    )
+    ref = integrate(mid, depth, cam)
     assert int(n_corr) == int(n_ref)
     np.testing.assert_allclose(
         np.asarray(got.deform), np.asarray(ref.deform), atol=1e-4
@@ -264,7 +261,7 @@ def test_fused_step_matches_sequential():
 
 
 def test_update_deformation_cubes_matches_slot_stream():
-    """The cube-corner accumulation (TPU fast path: fold slot
+    """The cube-corner accumulation (scatter_free path: fold slot
     contributions onto the 8 cube corners, 8 sorted per-corner
     scatters) == the slot-stream update, both counts and flow sums."""
     from tsdf_tpu.ops.marching_cubes import _extract_arrays
@@ -277,10 +274,10 @@ def test_update_deformation_cubes_matches_slot_stream():
     soup, (cid, edge_idx, cube_valid) = _extract_arrays(
         vol.tsdf, vol.voxel_size, vol.offset,
         max_cubes=1 << 14, max_vertices=1,
-        layout="masked", tpu_safe=True, return_cube_slots=True,
+        layout="masked", scatter_free=True, return_cube_slots=True,
     )
     ref, n_ref = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=False
+        vol, soup, depth, cam, flow, scatter_free=False
     )
     got, n_got = update_deformation_cubes(
         vol, soup, cid, edge_idx, cube_valid, depth, cam, flow
@@ -292,10 +289,10 @@ def test_update_deformation_cubes_matches_slot_stream():
 
 
 def test_chunk_major_compaction_matches_old():
-    """Round-5 chunk-major compaction (_chunked_compact_cm: batched
+    """The chunk-major compaction (_chunked_compact_cm: batched
     per-chunk prefix sort + compare-reduce rank map + pre-sorted
     gathers + two narrow order-restoring sorts) produces EXACTLY the
-    round-4 compaction's output (same ascending-cid contract), and the
+    window-walk compaction's output (same ascending-cid contract), and the
     fused-step extraction + deformation update built on it matches the
     lax reference."""
     from tsdf_tpu.ops.marching_cubes import (
@@ -323,20 +320,20 @@ def test_chunk_major_compaction_matches_old():
     soup_n, (cid, ei, cv, edge_verts) = _extract_arrays(
         vol.tsdf, vol.voxel_size, vol.offset,
         max_cubes=mc, max_vertices=1,
-        layout="masked", tpu_safe=True, return_cube_slots=True,
+        layout="masked", scatter_free=True, return_cube_slots=True,
         chunk_major=True, return_edge_verts=True,
     )
     new, n_new = update_deformation_cubes(
         vol, soup_n, cid, ei, cv, depth, cam, flow
     )
     ref, n_ref = update_deformation(
-        vol, soup_n, depth, cam, flow, tpu_safe=False
+        vol, soup_n, depth, cam, flow, scatter_free=False
     )
     assert int(n_new) == int(n_ref)
     np.testing.assert_allclose(
         np.asarray(new.deform), np.asarray(ref.deform), atol=1e-4
     )
-    # per-EDGE correspondence (round 5): a slot's pixel is its edge's
+    # per-EDGE correspondence: a slot's pixel is its edge's
     # pixel, so gathering once per edge must reproduce the per-slot
     # update exactly
     newe, n_e = update_deformation_cubes(
@@ -383,8 +380,8 @@ def test_correspondence_uses_camera_depth_not_world_z():
 
 def test_correspondence_blocked_gather_path():
     """Slot streams beyond the 64k block size take the gather_flat
-    block walk (the jnp.take lowering was the fused step's compile
-    bomb); it must agree slot-for-slot with the small-N take path."""
+    block walk; it must agree slot-for-slot with the small-N take
+    path."""
     from tsdf_tpu.pipelines.scenefusion import _slot_correspondence
 
     cam = Camera.from_intrinsics(FX, FY, CX, CY).move_to([0.0, 0.0, 0.0])
@@ -442,9 +439,9 @@ def test_update_deformation_rotated_camera():
     delta = np.asarray(new_vol.deform - vol.deform)
     moved = np.abs(delta[..., 0]) > 1.0
     assert moved.sum() > 100
-    # tpu_safe scatter path agrees
+    # scatter-free path agrees
     ref, n_ref = update_deformation(
-        vol, soup, depth, cam, flow, tpu_safe=True
+        vol, soup, depth, cam, flow, scatter_free=True
     )
     assert int(n_ref) == int(n_corr)
     np.testing.assert_allclose(
@@ -459,7 +456,7 @@ def test_fused_step_traces_at_512():
     32-channel accumulator alone was ~17 GB there)."""
     import jax
 
-    from tsdf_tpu.pipelines.scenefusion import _sf_step_pallas
+    from tsdf_tpu.pipelines.scenefusion import _sf_step
 
     vol = make_volume(
         (512,) * 3, 5120.0, offset=(-2560.0, -2560.0, 0.0),
@@ -469,9 +466,9 @@ def test_fused_step_traces_at_512():
     flow = jnp.zeros((480, 640, 3), jnp.float32)
     cam = Camera.default_depth_camera()
     out = jax.eval_shape(
-        lambda v, d, f: _sf_step_pallas(
-            v, d, f, cam, max_cubes=1 << 18, nk=5,
-            threshold_mm=10.0, tpu_safe=True,
+        lambda v, d, f: _sf_step(
+            v, d, f, cam, max_cubes=1 << 18,
+            threshold_mm=10.0, scatter_free=True,
         ),
         vol, depth, flow,
     )
@@ -479,8 +476,8 @@ def test_fused_step_traces_at_512():
 
 
 def test_scenefusion_prewarm_fallback(tmp_path):
-    """prewarm_fallback AOT-compiles the use_chunked=False variant up
-    front; the run must behave identically."""
+    """prewarm_fallback compiles the overflow-fallback variants up front
+    in a background thread; the run must behave identically."""
     vol, cam, depth = _sphere_setup()
     d = np.asarray(depth)
     for i in range(2):
@@ -510,7 +507,7 @@ def test_scenefusion_prewarm_fallback(tmp_path):
 def test_cap_ladder_escalates_on_overflow():
     """A tiny max_cubes_fast overflows; the pipeline escalates to the
     max_cubes ceiling and the result matches a run without the ladder
-    (round-4 cap ladder; overflow never truncates)."""
+    (overflow never truncates)."""
     import dataclasses
 
     import jax.numpy as jnp

@@ -7,7 +7,7 @@ poses, then a raycast of the fused volume is compared against a raycast
 of the analytic scene (image agreement = the reference's visual
 acceptance, made quantitative).
 
-Run: PYTHONPATH=. timeout 570 python tools/run_config2.py
+Run: python tools/run_config2.py
 """
 
 import time
@@ -17,13 +17,15 @@ sys.path.insert(0, __file__.rsplit('/', 2)[0])
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from tsdf_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
 from tsdf_tpu import Camera, make_volume
-from tsdf_tpu.kernels.raycast import raycast_pallas
+from tsdf_tpu.ops.raycast import raycast
 from tsdf_tpu.pipelines import FusionConfig, fuse_frames
 from tsdf_tpu.utils import fixtures
 
@@ -31,7 +33,7 @@ W, H, GRID, N = 640, 480, 128, 20
 
 
 def sync(x):
-    return float(jnp.sum(jnp.where(jnp.isfinite(x), x, 0.0)))
+    return jax.block_until_ready(x)
 
 
 scene = fixtures.sphere_tsdf(
@@ -51,7 +53,7 @@ cams = [
 
 
 def depth_of(c):
-    verts, _ = raycast_pallas(scene, c, W, H)
+    verts, _ = raycast(scene, c, W, H)
     camz = c.world_to_camera(
         jnp.where(jnp.isfinite(verts), verts, 0.0).reshape(-1, 3)
     ).reshape(H, W, 3)[..., 2]
@@ -64,7 +66,7 @@ frames = [depth_of(c) for c in cams]
 sync(frames[-1])
 
 vol = make_volume((GRID,) * 3, 3000.0, offset=(-1500.0, -1500.0, 0.0))
-cfg = FusionConfig(width=W, height=H, use_pallas=True)
+cfg = FusionConfig(width=W, height=H)
 
 pairs = list(zip(frames, [jnp.asarray(c.pose) for c in cams]))
 v2, _ = fuse_frames(vol, cams[0], pairs[:2], cfg)
@@ -78,8 +80,8 @@ upd_s = N * GRID**3 / dt
 
 # image agreement: raycast the fused volume vs the analytic scene
 ray_cam = cams[0]
-v_f, _ = raycast_pallas(fused, ray_cam, W, H)
-v_s, _ = raycast_pallas(scene, ray_cam, W, H)
+v_f, _ = raycast(fused, ray_cam, W, H)
+v_s, _ = raycast(scene, ray_cam, W, H)
 hit_f = np.isfinite(np.asarray(v_f)).all(-1)
 hit_s = np.isfinite(np.asarray(v_s)).all(-1)
 agree = (hit_f == hit_s).mean()

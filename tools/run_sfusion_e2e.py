@@ -1,54 +1,55 @@
-"""Fabricate a 4-frame RGBD + PD-Flow dataset and drive the sfusion CLI
-end-to-end on the chip (SceneFusion class: cap ladder + background
-prewarm + mesh export)."""
-import os, subprocess, sys, tempfile, time
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
+"""Fabricate an RGBD + PD-Flow dataset and drive the sfusion CLI end to
+end in this process (SceneFusion class: cap ladder + background prewarm
++ mesh export) at the reference's 255^3.
+
+Run: python tools/run_sfusion_e2e.py        (SFUSION_E2E_FRAMES, default 4)
+"""
+
+import os
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 import numpy as np
 
-import jax
-jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-import jax.numpy as jnp
-from tsdf_tpu import Camera, make_volume
-from tsdf_tpu.ops.raycast import render_to_depth_image
+import chip_smoke
+from tsdf_tpu.cli import main as cli_main
 from tsdf_tpu.io.png import save_png
-from tsdf_tpu.utils import fixtures
 
-W, H = 640, 480
+W, H = chip_smoke.W, chip_smoke.H
 N = int(os.environ.get("SFUSION_E2E_FRAMES", "4"))
-root = tempfile.mkdtemp(prefix="sfusion_e2e_")
-rgbd, flow = os.path.join(root, "rgbd"), os.path.join(root, "flow")
-os.makedirs(rgbd); os.makedirs(flow)
 
-vol = fixtures.sphere_tsdf(
-    make_volume((255,)*3, 2550.0, offset=(-1275.0,-1275.0,0.0)),
-    500.0, centre=(0.0, 0.0, 1300.0))
-cam = Camera.default_depth_camera()  # identity pose, like the CLI default
-depth = np.asarray(render_to_depth_image(vol, cam, width=W, height=H))
-print("depth dtype/range:", depth.dtype, depth.min(), depth.max(), flush=True)
-ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
-for i in range(N):
-    save_png(os.path.join(rgbd, f"depth_{i:05d}.png"), depth.astype(np.uint16))
-    save_png(os.path.join(rgbd, f"colour_{i:05d}.png"),
-             np.full((H, W, 3), 128, np.uint8))
-    if i < N:  # one flow file per frame index (provider plays per frame)
-        sfx = np.full((H, W), 0.004 + 0.001*i, np.float32)   # metres
-        sfy = np.zeros((H, W), np.float32)
-        sfz = np.zeros((H, W), np.float32)
-        rows = np.stack([ys.ravel(), xs.ravel(), sfz.ravel(),
-                         sfx.ravel(), sfy.ravel()], axis=1)
-        np.savetxt(os.path.join(flow, f"sflow_{i:05d}_results01.txt"),
-                   rows, fmt="%.0f %.0f %.6f %.6f %.6f")
-print("dataset at", root, flush=True)
-t0 = time.time()
-r = subprocess.run(
-    [sys.executable, "-m", "tsdf_tpu.cli", "sfusion", rgbd, flow,
-     "--mesh", os.path.join(root, "mesh.ply"),
-     ],
-    cwd=__file__.rsplit("/", 2)[0], capture_output=True, text=True, timeout=1500)
-print("CLI rc:", r.returncode, f"({time.time()-t0:.0f}s)", flush=True)
-print(r.stdout[-800:], flush=True)
-if r.returncode: print(r.stderr[-1500:], flush=True)
-m = os.path.join(root, "mesh.ply")
-if os.path.exists(m):
-    print("mesh.ply size:", os.path.getsize(m), flush=True)
+
+def run():
+    root = tempfile.mkdtemp(prefix="sfusion_e2e_")
+    rgbd, flow = os.path.join(root, "rgbd"), os.path.join(root, "flow")
+    os.makedirs(rgbd)
+    os.makedirs(flow)
+    # the CLI's camera sits at the origin looking along +z
+    depth = chip_smoke.analytic_depth(
+        np.eye(4), wall_z=2400.0, sphere_c=(0.0, 0.0, 1300.0),
+        sphere_r=500.0,
+    )
+    for i in range(N):
+        save_png(os.path.join(rgbd, f"depth_{i:05d}.png"),
+                 np.round(depth).astype(np.uint16))
+        save_png(os.path.join(rgbd, f"colour_{i:05d}.png"),
+                 np.full((H, W, 3), 128, np.uint8))
+        chip_smoke._write_pdflow(
+            os.path.join(flow, f"sflow_{i:05d}_results01.txt"),
+            (0.004 + 0.001 * i, 0.0, 0.0),
+        )
+    print("dataset at", root, flush=True)
+    mesh = os.path.join(root, "mesh.ply")
+    t0 = time.time()
+    rc = cli_main(["sfusion", rgbd, flow, "--mesh", mesh])
+    print(f"CLI rc: {rc} ({time.time() - t0:.0f}s)", flush=True)
+    if os.path.exists(mesh):
+        print("mesh.ply size:", os.path.getsize(mesh), flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(run())

@@ -1,19 +1,19 @@
-"""tsdf_tpu — a TPU-native differentiable TSDF 3D-reconstruction framework.
+"""tsdf_tpu — a differentiable TSDF 3D-reconstruction framework in JAX.
 
-Built from scratch in JAX/Pallas with the capabilities of the CUDA
-reference Scoobadood/TSDF (see SURVEY.md): TSDF depth integration,
-sphere-traced raycasting, marching-cubes mesh extraction, bilateral depth
-filtering, projective point-to-plane ICP tracking, non-rigid SceneFusion
+Built from scratch with the capabilities of the CUDA reference
+Scoobadood/TSDF (see SURVEY.md): TSDF depth integration, sphere-traced
+raycasting, marching-cubes mesh extraction, bilateral depth filtering,
+projective point-to-plane ICP tracking, non-rigid SceneFusion
 deformation, TUM/.tsdf/PLY/PNG I/O — all as pure functions over pytrees,
-differentiable and shardable over a TPU device mesh.
+differentiable and shardable over a device mesh of NVIDIA GPUs.
 """
 
 import jax
 
 # Geometry math (projection, pose chains, ICP normal equations) needs true
-# f32: TPU's default matmul precision routes f32 through bf16 passes, which
-# costs ~3 pixels of projection error at 640x480. All matmuls here are tiny
-# (Nx3 @ 3x3), so full precision is free — the hot loops are gathers.
+# f32: on NVIDIA GPUs XLA may run f32 matmuls in TF32, whose 10-bit
+# mantissa costs pixels of projection error at 640x480. All matmuls here
+# are tiny (Nx3 @ 3x3), so full precision is free.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 from .camera import Camera

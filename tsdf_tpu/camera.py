@@ -1,6 +1,6 @@
 """Pinhole camera as a differentiable JAX pytree.
 
-TPU-native re-design of the reference's host-side ``Camera`` class
+Re-design of the reference's host-side ``Camera`` class
 (ref: src/Camera.cpp:1-391, src/include/Camera.hpp:17-215) and the CUDA
 device transforms (ref: src/Utilities/cuda_coordinate_transforms.cu:10-160).
 

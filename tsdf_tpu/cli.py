@@ -47,24 +47,11 @@ def _add_camera_args(p):
 def _render_outputs(vol, camera, args):
     import jax.numpy as jnp
 
-    from .ops.shading import normals_image, scene_image
     from .io.png import save_png
+    from .ops.raycast import raycast
+    from .ops.shading import normals_image, scene_image
 
-    if getattr(args, "pallas", False):
-        import jax
-
-        from .kernels.raycast import raycast_pallas
-
-        verts, normals = raycast_pallas(
-            vol, camera, args.width, args.height,
-            interpret=jax.default_backend() != "tpu",
-        )
-    else:
-        from .ops.raycast import raycast
-
-        verts, normals = raycast(
-            vol, camera, width=args.width, height=args.height
-        )
+    verts, normals = raycast(vol, camera, width=args.width, height=args.height)
     if args.scene:
         img = scene_image(verts, normals, camera.position)
         save_png(args.scene, np.asarray(img))
@@ -117,14 +104,6 @@ def _write_mesh(vol, path, max_cubes, max_vertices, color=False):
         vol, max_cubes=max_cubes, max_vertices=max_vertices
     )
     if bool(soup.overflowed):
-        # the chunked compaction's active-chunk cap may be the limit;
-        # the full-volume sort compaction's only caps are the explicit
-        # --max-cubes/--max-vertices
-        soup = extract_surface(
-            vol, max_cubes=max_cubes, max_vertices=max_vertices,
-            use_chunked=False,
-        )
-    if bool(soup.overflowed):
         print(
             "warning: mesh buffers overflowed; rerun with larger "
             "--max-cubes/--max-vertices",
@@ -147,6 +126,7 @@ def _write_mesh(vol, path, max_cubes, max_vertices, color=False):
 
 
 def cmd_fuse(args):
+    import jax
     import jax.numpy as jnp
 
     from .io.tum import TUMDataLoader
@@ -162,7 +142,6 @@ def cmd_fuse(args):
         use_bilateral_filter=args.filter,
         width=args.width,
         height=args.height,
-        use_pallas=args.pallas,
         icp_conv_eps=args.icp_eps,
     )
     vol = cfg.make_volume()
@@ -270,30 +249,9 @@ def cmd_fuse(args):
                 depth_arr = bilateral_filter(depth_arr)
             rgb_arr = None if rgb is None else jnp.asarray(rgb)
             if mesh is not None:
-                vol, miss = integrate_sharded(
-                    vol, depth_arr, camera, mesh, rgb=rgb_arr,
-                    return_miss=True,
+                vol = integrate_sharded(
+                    vol, depth_arr, camera, mesh, rgb=rgb_arr
                 )
-                if int(miss):
-                    vol = integrate_sharded(
-                        vol, depth_arr, camera, mesh, rgb=rgb_arr,
-                        mode="exact", nk=5,
-                    )
-            elif args.pallas and rgb_arr is not None:
-                # production colour path: the packed two-table line-warp
-                # kernel (the lax colour gather is pathological on TPU)
-                import jax
-
-                from .kernels.integrate import integrate_color_pallas
-
-                out, miss = integrate_color_pallas(
-                    vol, depth_arr, rgb_arr, camera,
-                    interpret=jax.default_backend() != "tpu",
-                )
-                if int(miss) == 0:
-                    vol = out
-                else:  # extreme roll: exact-or-skip fallback
-                    vol = integrate(vol, depth_arr, camera, rgb=rgb_arr)
             else:
                 vol = integrate(vol, depth_arr, camera, rgb=rgb_arr)
             count += 1
@@ -304,13 +262,10 @@ def cmd_fuse(args):
         # Multi-chip fusion: brick-shard the volume over a BxR device
         # mesh and run the sharded pipeline (integrate_sharded /
         # track_and_fuse_frames_sharded) end-to-end.
-        import jax
-
         from .parallel.ops import (
             integrate_sharded,
             shard_volume,
             track_and_fuse_frames_sharded,
-            _warn_sharded_misses,
         )
 
         mesh, merr = _parse_mesh(args)
@@ -332,15 +287,10 @@ def cmd_fuse(args):
             )
         else:
             count = 0
-            miss_log = []
             for depth, pose in stream(True):
                 camera = camera.set_pose(pose)
-                vol, miss = integrate_sharded(
-                    vol, depth, camera, mesh, return_miss=True
-                )
-                miss_log.append(miss)
+                vol = integrate_sharded(vol, depth, camera, mesh)
                 count += 1
-            _warn_sharded_misses(miss_log)
             print(f"fused {count} frames on {mstr} mesh")
         # un-shard for the single-device render / mesh / save outputs
         vol = jax.tree.map(np.asarray, vol)
@@ -550,7 +500,6 @@ def main(argv=None):
     p.add_argument("--physical", type=float, default=3000.0)
     p.add_argument("--track", action="store_true", help="ICP tracking")
     p.add_argument("--filter", action="store_true", help="bilateral prefilter")
-    p.add_argument("--pallas", action="store_true", help="TPU Pallas kernels")
     p.add_argument(
         "--icp-eps", type=float, default=0.0,
         help="ICP early-exit threshold on the per-iteration update "
@@ -568,8 +517,7 @@ def main(argv=None):
     p.add_argument("--color", help="colour render PNG (needs a colour volume)")
     p.add_argument(
         "--fuse-color", action="store_true",
-        help="fuse rgb/<stamp>.png frames into per-voxel colour "
-        "(GT poses, lax path)",
+        help="fuse rgb/<stamp>.png frames into per-voxel colour",
     )
     p.add_argument("--mesh", default="mesh.ply")
     p.add_argument("--max-cubes", type=int, default=1 << 18)
@@ -584,7 +532,6 @@ def main(argv=None):
     p.add_argument("--color", help="colour render PNG (needs a colour volume)")
     p.add_argument("--look-from", help="x,y,z mm")
     p.add_argument("--look-at", help="x,y,z mm")
-    p.add_argument("--pallas", action="store_true", help="TPU slab-sweep")
     _add_camera_args(p)
     p.set_defaults(fn=cmd_render)
 
@@ -636,6 +583,9 @@ def main(argv=None):
     p.set_defaults(fn=cmd_convert)
 
     args = parser.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args) or 0
 
 

@@ -1,6 +1,6 @@
 """RGBD device abstraction with a disk-replay mock.
 
-TPU-native re-design of the reference's ``RGBDDevice`` ABC + MockKinect
+Re-design of the reference's ``RGBDDevice`` ABC + MockKinect
 (ref: src/include/RGBDDevice.hpp:10-53, src/RGBDDevice/MockKinect.cpp):
 an initialise/start/stop device with a single observer callback, and a
 mock that replays ``colour_NNNNN.png`` / ``depth_NNNNN.png`` pairs from

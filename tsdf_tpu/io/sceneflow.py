@@ -1,6 +1,6 @@
 """Scene-flow providers: SRSF XML and PD-Flow text, with mock replay.
 
-TPU-native re-design of the reference's scene-flow stack
+Re-design of the reference's scene-flow stack
 (ref: src/SceneFlowAlgorithm/): the ``SceneFlowAlgorithm`` ABC becomes a
 callable protocol returning (translation, rotation, flow); the two mock
 implementations replay canned files from a directory in sorted order

@@ -77,7 +77,7 @@ class TUMDataLoader:
 
         if len(self.entries) > 1 and native.available():
             # The prefetcher decodes strictly native 16-bit-grey PNGs
-            # (bit-identical to the PIL fallback); any other format
+            # (bit-identical to the io/png.py fallback); any other format
             # errors per-frame and is loaded through the fallback path
             # instead, so both loaders always agree.
             pf = native.PNGPrefetcher([p for p, _ in self.entries])

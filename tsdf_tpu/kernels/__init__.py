@@ -1,27 +1,10 @@
-"""Pallas TPU kernels for the hot ops.
+"""Hand-written GPU kernels for the hot ops that XLA cannot express well.
 
-The reference's CUDA kernels (SURVEY.md §2.9) become Mosaic kernels here.
-XLA's generic gather/scatter is the enemy on TPU (measured ~0.11 G
-lookups/s and pathological compile times for the per-voxel depth fetch);
-these kernels restructure the memory access into the per-vreg
-``dynamic_gather`` forms the VPU actually supports (lane-gather at width
-128, sublane-gather at height 8).
+Each kernel names its Pallas route (``backend="triton"``) and keeps a
+plain-JAX semantics reference in ``ops/``, against which it is tested in
+interpret mode.
 """
 
-from .bilateral import bilateral_filter_pallas
-from .integrate import (
-    integrate_auto,
-    integrate_pallas,
-    integrate_color_pallas,
-    integrate_pose,
-    integrate_warped_pallas,
-)
+from .raymarch import march_image_tiled, march_rays_tiled
 
-__all__ = [
-    "bilateral_filter_pallas",
-    "integrate_pallas",
-    "integrate_auto",
-    "integrate_color_pallas",
-    "integrate_pose",
-    "integrate_warped_pallas",
-]
+__all__ = ["march_image_tiled", "march_rays_tiled"]

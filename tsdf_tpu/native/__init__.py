@@ -1,11 +1,11 @@
 """Native I/O runtime bindings (ctypes over a small C++/libpng library).
 
-The compute path is JAX/Pallas; the host runtime around it — frame
+The compute path is JAX; the host runtime around it — frame
 decode, batch loading, prefetch — is native C++, like the reference's
 (ref: src/Utilities/PngUtilities.cpp, src/DataLoader/). Built on first
 use with g++ (cached as libtsdf_io.so next to the source); falls back
 cleanly if no toolchain is present (``available()`` returns False and
-callers use the PIL path).
+callers use the numpy codec in io/png.py).
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ class PNGPrefetcher:
     """Background-thread decode-ahead over an ordered path list.
 
     Iterating yields (H, W) u16 frames; decode overlaps consumer compute
-    (the TUM fuse loop feeds the TPU from this).
+    (the TUM fuse loop feeds the device from this).
     """
 
     def __init__(self, paths: list[str], threads: int = 4):

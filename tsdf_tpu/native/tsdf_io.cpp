@@ -2,8 +2,8 @@
 // background prefetch queue.
 //
 // The reference's data path (L2/L3: PngUtilities.cpp, PngWrapper.cpp,
-// TUMDataLoader.cpp) is native C++ over libpng; this is its TPU-framework
-// equivalent: the host-side feeding pipeline stays native so depth-frame
+// TUMDataLoader.cpp) is native C++ over libpng; this is its equivalent
+// here: the host-side feeding pipeline stays native so depth-frame
 // decode overlaps device compute. Exposed as a plain C ABI for ctypes
 // (no pybind11 in this image).
 //

@@ -1,8 +1,8 @@
 """Bilateral depth filtering as a dense stencil.
 
-TPU-native re-design of the reference's CPU ``BilateralFilter``
+Re-design of the reference's CPU ``BilateralFilter``
 (ref: src/BilateralFilter.cpp:15-121): a (2r+1)^2 window of shifted
-adds that XLA fuses — no LUTs needed on a vector machine.
+adds that XLA fuses — no LUTs needed.
 
 Spatial weight exp(-(dx^2+dy^2)/sigma_space^2) and radius
 ceil(1.5*sigma_space) follow the reference (ref: :17, :38-41). The
@@ -10,7 +10,7 @@ similarity weight is the standard Gaussian exp(-dv^2 / (2 sigma_c^2)),
 NOT the reference's exp(-|dv|/sigma_c^2): that formula was written for
 8-bit intensities (256-entry LUT, |dv| <= 255) and on mm-scale depth
 its decay constant is sigma_c^2 = 400 mm (at the default sigma_c=20) —
-no edge preservation at all. Measured consequence (round 2, v5e): with the reference formula a
+no edge preservation at all. Measured consequence: with the reference formula a
 depth silhouette smears ~±7 px into the background, producing
 view-dependent fake surfaces that bias projective ICP — a clean 6.6 mm
 lateral step was estimated as 1.3 mm (5x under), destroying the

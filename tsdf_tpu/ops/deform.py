@@ -1,6 +1,6 @@
 """Deformation-field warping of points (the SceneFusion mesh warp).
 
-TPU-native re-design of ``TSDFVolume::deform_mesh`` / ``deformation_kernel``
+Re-design of ``TSDFVolume::deform_mesh`` / ``deformation_kernel``
 (ref: src/TSDF/TSDFVolume.cu:215-283): for each point, trilinearly blend
 the 8 surrounding deformation nodes' translations (``get_trilinear_elements``,
 ref: TSDFVolume.cu:101-181), then apply the volume's global Euler rotation

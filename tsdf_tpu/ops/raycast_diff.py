@@ -1,7 +1,7 @@
 """Differentiable raycasting: gradients to the TSDF grid and the pose.
 
 The reference has no gradients at all; this is the differentiable-render
-layer the TPU framework adds (BASELINE config 4: recover a camera pose by
+layer this framework adds (BASELINE config 4: recover a camera pose by
 descending a pixel loss through the TSDF).
 
 Backward through the march loop without storing samples: the
@@ -28,13 +28,13 @@ import jax.numpy as jnp
 
 from ..camera import Camera
 from ..volume import TSDFVolume
-from .raycast import REFERENCE_MAX_STEPS, march_rays, ray_directions
+from .raycast import REFERENCE_MAX_STEPS, march_image, ray_directions
 from .trilinear import trilinear_sample
 
 
 @partial(
     jax.jit,
-    static_argnames=("width", "height", "mode", "max_steps", "use_pallas"),
+    static_argnames=("width", "height", "mode", "max_steps"),
 )
 def raycast_diff(
     vol: TSDFVolume,
@@ -44,16 +44,12 @@ def raycast_diff(
     mode: str = "sphere",
     max_steps: int = REFERENCE_MAX_STEPS,
     step_scale: float = 0.75,
-    use_pallas: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Differentiable raycast.
 
-    Args:
-      use_pallas: run the (non-differentiable) forward march with the
-        slab-sweep kernel — the gradients come entirely from the
-        correction step, so the Pallas march changes only where t0 lands
-        (sub-voxel vs the lax march). Makes 512^3 differentiable
-        rendering practical on TPU.
+    The forward march is the non-differentiable ``march_image`` (the
+    per-tile kernel on a GPU); the gradients come entirely from the
+    correction step.
 
     Returns:
       vertices: (H, W, 3) world-mm hit points (NaN on miss),
@@ -63,23 +59,14 @@ def raycast_diff(
     # Non-differentiable march for the hit parameter.
     frozen_vol = jax.lax.stop_gradient(vol)
     frozen_cam = jax.lax.stop_gradient(camera)
-    if use_pallas:
-        from ..kernels.raycast import raycast_pallas
-
-        verts_img, _ = raycast_pallas(frozen_vol, frozen_cam, width, height)
-        verts0 = verts_img.reshape(-1, 3)
-    else:
-        dirs_frozen = ray_directions(frozen_cam, width, height).reshape(
-            -1, 3
-        )
-        verts0 = march_rays(
-            frozen_vol,
-            frozen_cam.position,
-            dirs_frozen,
-            mode=mode,
-            max_steps=max_steps,
-            step_scale=step_scale,
-        )
+    verts0 = march_image(
+        frozen_vol,
+        frozen_cam.position,
+        ray_directions(frozen_cam, width, height),
+        mode=mode,
+        max_steps=max_steps,
+        step_scale=step_scale,
+    ).reshape(-1, 3)
     hit_mask = jnp.isfinite(verts0).all(axis=-1)
     origin_f = frozen_cam.position
     t0 = jnp.where(

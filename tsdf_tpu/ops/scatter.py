@@ -1,19 +1,17 @@
-"""TPU scatter-add without scatter hardware: sorted-window one-hot matmuls.
+"""Scatter-add without XLA scatter: sorted-window one-hot matmuls.
 
 The adjoint of every gather stencil in this framework (the trilinear
 8-tap sample ref: src/RayCaster/GPURaycaster.cu:53-124, the marching-
 cubes compaction writes ref: src/MarchingCubes/MarkAndSweepMC.cu:219-304)
-is a scatter-add. XLA:TPU lowers generic scatter to a serial per-element
-loop with pathological compile times at volume scale (measured round 1:
-512^3 adjoints would not compile in minutes). The TPU also has no
-scatter unit Mosaic could target. What the TPU *does* have is an MXU
-that turns a one-hot matmul into an exact f32 row-scatter:
+is a scatter-add. This module computes one without a scatter operation
+(the ``scatter_free`` arm of marching cubes and SceneFusion): a one-hot
+matmul is an exact f32 row-scatter,
 
     patch[r, l] = sum_c M[c, r] * V[c, l],   M one-hot in r, V one-hot
                                              in l scaled by the value
 
 so a batch of C contributions (linear index, value) lands in a dense
-(RP, 128) patch with two VPU compares and one matmul. The full algorithm:
+(RP, 128) patch with two compares and one matmul. The full algorithm:
 
   1. view the flat output as rows of 128 lanes; row = lin >> 7,
      lane = lin & 127;
@@ -89,8 +87,7 @@ def scatter_add_flat(
         after the first violation would be silently dropped. Use only
         where the stream is ascending by construction (the cube-corner
         update's compaction ids): the checked variant's lax.cond
-        carries a (1+D)-operand sort branch whose XLA:TPU compile is
-        pathological at volume scale.
+        carries a (1+D)-operand sort branch.
       fold_offsets: G static non-negative index offsets. val must then
         be (G*Dout, C) and the result is (Dout, n) with
         ``out[:, lin[c] + fold_offsets[g]] += val[g*Dout:(g+1)*Dout, c]``
@@ -102,10 +99,7 @@ def scatter_add_flat(
         patch update (the SceneFusion cube-corner update: 8 corners x 4
         channels fold into 4, cutting the accumulator from 32 to 4
         dense channels; entries whose lin+offset lands outside [0, n)
-        are dropped). An earlier formulation that scattered at the base
-        index and value-shifted each tap's patch by static lane pads +
-        8 shifted slice/update pairs compiled for 34 MINUTES at 255^3
-        on XLA:TPU; this in-matmul fold keeps the loop body the same
+        are dropped). The in-matmul fold keeps the loop body the same
         shape as the no-fold path (compare + matmul + one slice/update
         per group).
 
@@ -318,9 +312,7 @@ def scatter_set_int(
 @jax.custom_vjp
 def take_flat(flat: jnp.ndarray, lin: jnp.ndarray) -> jnp.ndarray:
     """flat[lin] with clamped indices — identical forward to jnp.take,
-    but its VJP into ``flat`` runs through ``scatter_add_flat`` so
-    volume-scale adjoints (512^3 differentiable raycast) compile and run
-    on TPU (round-1 gap: XLA's scatter lowering did not)."""
+    but its VJP into ``flat`` runs through ``scatter_add_flat``."""
     return jnp.take(flat, lin, axis=0, mode="clip")
 
 
@@ -356,13 +348,9 @@ def gather_flat(
 ) -> jnp.ndarray:
     """out[c] = table[lin[c]] — the gather DUAL of ``scatter_add_flat``.
 
-    XLA:TPU lowers a generic gather from an arbitrary index stream to a
-    serial loop with pathological COMPILE times (the SceneFusion slot
-    correspondence's 64k-block ``jnp.take`` walk alone compiled for
-    >15 minutes — the dominant share of the fused step's ~30-minute
-    compile) and ~0.11 G lookups/s at runtime. Same cure as the
-    scatter: sort the stream, walk it with a static window, and turn
-    each window into MXU work —
+    A gather from an arbitrary index stream without a gather operation,
+    by the same method as the scatter: sort the stream, walk it with a
+    static window, and turn each window into matmul work —
 
       1. sort (lin, arange) so each window of K indices spans a small
          contiguous row range of the flat table;

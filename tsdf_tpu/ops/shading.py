@@ -1,6 +1,6 @@
 """Lambertian shading and normal-map visualization.
 
-TPU-native port of the reference render utilities
+Port of the reference render utilities
 (ref: src/Utilities/RenderUtilities.cpp:39-112) — trivially dense
 element-wise math, pure XLA.
 """

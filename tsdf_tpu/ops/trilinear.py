@@ -1,6 +1,6 @@
 """Trilinear TSDF sampling — the 8-tap stencil every raycast step uses.
 
-TPU-native re-design of ``trilinearly_interpolate``
+Re-design of ``trilinearly_interpolate``
 (ref: src/RayCaster/GPURaycaster.cu:53-124) and ``tsdf_value_at``
 (ref: src/TSDF/TSDF_utilities.cu:29-37). The reference samples one point
 per CUDA thread; here sampling is vectorized over arbitrary point batches
@@ -62,9 +62,8 @@ def trilinear_sample(values: jnp.ndarray, points, voxel_size) -> jnp.ndarray:
 
     def tap(dx, dy, dz):
         # Clamp each tap into the grid (ref: TSDF_utilities.cu:29-37).
-        # take_flat: identical forward to jnp.take, but the adjoint into
-        # the grid is the sorted-window matmul scatter (ops/scatter.py)
-        # so volume-scale dL/dtsdf compiles and runs on TPU.
+        # take_flat: identical forward to jnp.take; its adjoint into the
+        # grid is the sorted-window matmul scatter (ops/scatter.py).
         idx = jnp.minimum(
             lower + jnp.array([dx, dy, dz], dtype=jnp.int32), size_i - 1
         )

@@ -2,9 +2,9 @@
 
 The reference is single-process/single-GPU (SURVEY.md §0) — its only
 parallelism is intra-kernel CUDA decompositions (§2.9). This package is the
-distributed layer the reference lacks, built the TPU way: a
-``jax.sharding.Mesh`` with named axes, ``shard_map``-ped ops with XLA
-collectives over ICI, never a translated NCCL call.
+distributed layer the reference lacks: a ``jax.sharding.Mesh`` with
+named axes and ``shard_map``-ped ops whose collectives XLA lowers (to
+NCCL on GPUs).
 
 Mesh axes:
   * ``"b"`` (bricks) — the volume's z extent is sliced into slabs, one per
@@ -22,7 +22,6 @@ from .ops import (
     integrate_sharded,
     merge_brick_soups,
     raycast_sharded,
-    raycast_sharded_bricked,
     scenefusion_frame_sharded,
     shard_volume,
     track_and_fuse_frames_sharded,
@@ -37,7 +36,6 @@ __all__ = [
     "integrate_pose_sharded",
     "integrate_sharded",
     "raycast_sharded",
-    "raycast_sharded_bricked",
     "get_incremental_transformation_sharded",
     "track_and_fuse_frames_sharded",
     "extract_surface_sharded",

@@ -3,7 +3,7 @@
 The reference has no distributed layer (SURVEY.md §5): its only
 "transport" is cudaMemcpy and files on disk. Here multi-host runs use
 ``jax.distributed`` for process bootstrap, the global mesh spans all
-hosts (ICI within a slice, DCN across), and recovery is
+hosts (NVLink within a host, the network across), and recovery is
 checkpoint-restart (utils/checkpoint.py) — the standard JAX multi-host
 fail-fast model, replacing the reference's ``exit(-1)`` on CUDA error
 (ref: src/Utilities/cuda_utilities.cu:5-11).
@@ -25,7 +25,7 @@ def initialize(
     """Bootstrap multi-host JAX; no-op in single-process runs.
 
     Arguments default from the standard env (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID or the TPU metadata on Cloud TPU).
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID).
     """
     if num_processes is None:
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))

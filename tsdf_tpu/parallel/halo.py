@@ -4,8 +4,8 @@ The reference's "long axis" mechanisms are serial loops and z-slab
 streaming (SURVEY.md §5); on a device mesh the equivalent is brick
 sharding with a 1-voxel halo so the trilinear 8-tap stencil
 (ops/trilinear.py) and marching-cubes' z+1 corner reads stay local.
-Exchange rides ``lax.ppermute`` over the "b" axis — ICI neighbour
-traffic, no all-gather.
+Exchange rides ``lax.ppermute`` over the "b" axis — neighbour traffic,
+no all-gather.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Pose tracking: projective point-to-plane ICP.
 
-TPU-native re-design of the vendored ICP_CUDA odometry
+Re-design of the vendored ICP_CUDA odometry
 (ref: third_party/ICP_CUDA/, SURVEY.md §2.10): the per-pixel residual
 rows + warp-shuffle block reduction become one masked dense reduction
 that jit fuses (and `psum` extends across a device mesh).

@@ -1,6 +1,6 @@
 """The TSDF volume as a JAX pytree of dense arrays.
 
-TPU-native re-design of the reference ``TSDFVolume`` class state
+Re-design of the reference ``TSDFVolume`` class state
 (ref: src/include/TSDFVolume.hpp:21-304, src/TSDF/TSDFVolume.cu:678-845).
 Where the reference holds five raw CUDA device pointers and mutates them
 in-place, here the volume is an immutable pytree of ``jnp`` arrays that
